@@ -1,11 +1,11 @@
-"""mceik-tpu: TPU-native Bayesian traveltime tomography.
+"""mceik-tpu: Bayesian traveltime tomography in JAX.
 
 A brand-new probabilistic inference engine with the capabilities of the
 reference mceik stack (Bayesian eikonal traveltime tomography: slowness
-fields + earthquake hypocenters), re-designed TPU-first:
+fields + earthquake hypocenters), re-designed for accelerators:
 
 - ``eikonal``   — differentiable 3-D/2-D eikonal solvers (parallel
-  fast-sweeping / fast-iterative; Pallas kernels for the hot path).
+  fast-sweeping / fast-iterative; a Pallas GPU kernel for the hot path).
 - ``forward``   — traveltime prediction: batched solves + receiver gather.
 - ``model``     — priors, Gaussian residual likelihood, posterior pytrees.
 - ``samplers``  — RW-Metropolis, adaptive Metropolis, HMC, NUTS, tempered SMC

@@ -16,10 +16,11 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 
 from mceik_tpu.config import RunConfig
@@ -32,6 +33,9 @@ from mceik_tpu.io.metrics import MetricsLogger
 from mceik_tpu.model.posterior import build_posterior
 from mceik_tpu.samplers import am, hmc, rwm
 from mceik_tpu.samplers.base import MCMCResult, init_chain_states, run_mcmc
+
+# float32 products: a TF32 default on the GPU would keep ~3 digits.
+HIGHEST = lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass
@@ -56,6 +60,9 @@ class RunSummary:
     # scalar logpost ESS (VERDICT r1 weak #6).
     ess_param_min: float = float("nan")
     ess_param_median: float = float("nan")
+    # Wall time of each sampling segment (the first one or two include
+    # compilation; later ones are steady state).
+    segment_seconds: Tuple[float, ...] = ()
 
 
 def _whitened_setup(posterior, scfg):
@@ -215,7 +222,8 @@ def _dispatch_sampler(scfg, posterior, resuming: bool = False):
                 # escapes. 0.3x keeps chains inside the near-Gaussian
                 # basin; burn-in is discarded as usual.
                 eps = active * jax.random.normal(key, x_map.shape, jnp.float32)
-                return unravel(x_map + 0.3 * (L_init @ eps))
+                return unravel(x_map + 0.3 * jnp.matmul(
+                    L_init, eps, precision=HIGHEST))
 
             make_states = lambda key, n: mala_mod.init_states(
                 lp, init_one, key, n)
@@ -403,7 +411,9 @@ def run(config: RunConfig, verbose: bool = True) -> RunSummary:
     step_done = 0
     keys = jax.random.split(k_run, n_seg)
     profiled = False
+    seg_seconds = []
     for si in range(n_seg):
+        t_seg = time.perf_counter()
         # Profile the SECOND segment (first is dominated by compilation).
         if config.io.profile_dir and si == 1 and not profiled:
             jax.profiler.start_trace(config.io.profile_dir)
@@ -417,6 +427,7 @@ def run(config: RunConfig, verbose: bool = True) -> RunSummary:
                      finalize_fn=finalize_fn if si == 0 else None,
                      init_welford=welford)
         jax.block_until_ready(r.logpost_trace)
+        seg_seconds.append(time.perf_counter() - t_seg)
         if profiled and si == 1:
             jax.profiler.stop_trace()
         states, hyper, welford = r.states, r.hyper, r.welford
@@ -498,6 +509,7 @@ def run(config: RunConfig, verbose: bool = True) -> RunSummary:
         eff_samples_per_sec=ess_lp / wall,
         truth=jax.tree.map(np.asarray, truth), recovery_corr=recovery,
         ess_param_min=ess_min, ess_param_median=ess_med,
+        segment_seconds=tuple(seg_seconds),
     )
     if verbose:
         print(f"[mceik-tpu] {scfg.algorithm} chains={scfg.n_chains} "

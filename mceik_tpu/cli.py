@@ -9,9 +9,30 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from mceik_tpu.io.config_io import apply_overrides, config_to_dict, load_config
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Keep XLA's persistent compile cache across runs; returns its path.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is read by JAX itself and
+    nothing is set here. Otherwise the cache lives at the fixed path
+    ``<repo>/.jax_cache`` (the path is part of the cache key, so it must
+    not move between runs).
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(REPO_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def main(argv=None) -> int:
@@ -38,6 +59,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "run":
+        enable_compile_cache()
         if cfg.sampler.algorithm == "smc":
             from mceik_tpu.samplers.smc import run_smc_config
             run_smc_config(cfg)

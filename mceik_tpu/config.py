@@ -31,9 +31,6 @@ class EikonalCfg:
     max_iters: int = 50
     n_inner: int = 2
     seed_radius: float = 3.0
-    # Pallas kernel path: "auto" uses the fused VMEM kernel when on TPU and
-    # the grid fits; "on"/"off" force it.
-    use_pallas: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

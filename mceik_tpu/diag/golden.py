@@ -30,8 +30,7 @@ import numpy as np
 PROBLEMS = {
     "c1_small": {
         "grid": {"shape": [25, 25], "spacing": [1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-4, "max_iters": 50,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-4, "max_iters": 50},
         "model": {"mode": "tomo", "inv_shape": [4, 4],
                   "background_slowness": 1.0, "prior_sigma_u": 0.15,
                   "sigma": 0.05},
@@ -41,8 +40,7 @@ PROBLEMS = {
     },
     "c2_small": {
         "grid": {"shape": [12, 12, 12], "spacing": [1.0, 1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30},
         # inv 3^3: small enough that full-cov AM reaches per-cell ESS in
         # the hundreds on the golden run (the moment z-test needs mixing,
         # not recovery; a 3^3 basis cannot represent the 2-lobe
@@ -77,8 +75,7 @@ PROBLEMS = {
     # reach valid MC error bars where am_full never equilibrated at all.
     "c3_joint_small": {
         "grid": {"shape": [12, 12, 10], "spacing": [1.0, 1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30},
         "model": {"mode": "joint", "inv_shape": [3, 3, 2],
                   "background_slowness": 1.0, "prior_sigma_u": 0.15,
                   "sigma": 0.04, "marginalize_t0": True},
@@ -102,8 +99,7 @@ PROBLEMS = {
     # flagship 1728-dim obstruction (BASELINE.md 2026-08-20) lies between.
     "c2_mid": {
         "grid": {"shape": [16, 16, 14], "spacing": [1.0, 1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30},
         "model": {"mode": "tomo", "inv_shape": [6, 6, 6],
                   "background_slowness": 1.0, "prior_sigma_u": 0.15,
                   "sigma": 0.04},

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 
-@flax.struct.dataclass
+
+@pytree_dataclass
 class Welford:
     count: jnp.ndarray  # scalar (or per-chain) sample count
     mean: Any           # pytree

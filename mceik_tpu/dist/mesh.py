@@ -3,7 +3,7 @@
 Chains/particles are the embarrassingly parallel axis: every chain-batched
 state leaf gets sharded over the ``chains`` mesh axis; cross-chain pooled
 statistics (adaptation, moments, ESS) are plain ``jnp.mean``/``sum`` over
-the chain axis, which XLA turns into ICI/DCN all-reduces under jit. The
+the chain axis, which XLA turns into all-reduces under jit. The
 single-process fallback is a mesh of 1 — every workload runs unmodified on
 CPU (SURVEY.md §2.4).
 """
@@ -23,7 +23,8 @@ def init_distributed(cfg: DistCfg) -> None:
     """Multi-host initialization (config 5). No-op in single-process runs.
 
     ``jax.distributed.initialize()`` only succeeds under a cluster
-    launcher (TPU pod metadata / coordinator env); outside one it raises.
+    launcher (coordinator address and process ids in the environment);
+    outside one it raises.
     Falling back to single-process keeps pod configs runnable at reduced
     scale on a dev chip — the c5 config is smoke-testable anywhere.
     """

@@ -5,7 +5,7 @@ The reference gathers all particles to rank 0 over MPI and scatters back
 [K]; here the resample *indices* are computed identically on every device
 from the same PRNG key + globally-reduced weights, and the particle
 exchange is a sharded ``jnp.take`` — XLA lowers the gather to the minimal
-ICI collective pattern. No coordinator, no user-level transport.
+collective pattern. No coordinator, no user-level transport.
 """
 
 from __future__ import annotations

@@ -90,7 +90,7 @@ def _bwd(grid, config, residuals, g):
     _, frozen = seed_source(slowness, src_xyz, grid, config.seed_radius)
     ws = transport_weights(T, slowness, frozen, grid.spacing)
     lam = transport_solve(g, ws, config.tol, config.max_iters,
-                          config.n_inner, use_pallas=config.use_pallas)
+                          config.n_inner)
 
     _, ds, dsrc = vjp_fn(lam)
     return ds, dsrc
@@ -100,34 +100,28 @@ solve_eikonal_diff.defvjp(_fwd, _bwd)
 
 
 # ---------------------------------------------------------------------------
-# Batched differentiable solve: custom_vmap( custom_vjp( flat batch ) ).
+# Batched differentiable solve: custom_vjp( flat batch ).
 #
-# The per-field solve_eikonal_diff above is correct but composes badly with
-# the sampler's chains x stations vmaps on TPU: its forward would reach the
-# backend as a multiply-vmapped solver (VMEM pressure / the batch>=32 scan
-# miscompilation — see eikonal/batched.py). The batched variant instead:
-#   forward: the verified flat-batch Pallas route (batched.solve_eikonal_batched)
-#   backward: a rank-1 vmapped adjoint transport (pure elementwise one-step
-#             maps — no lax.scan anywhere, safe at any batch size)
+#   forward: the flat-batch route (batched.solve_eikonal_batched — the GPU
+#            kernel on CUDA, the vmapped XLA sweep elsewhere)
+#   backward: a flat-batch adjoint transport (adjoint_sweep.py)
 #   batching: custom_vjp's own batching rule vmaps fwd/bwd; the fwd's
 #             INTERNAL flat-batch boundary (batched.py's custom_vmap, in
-#             the non-differentiated region) then merges the axes, and
-#             the vmapped bwd stays purely elementwise. (An outer
-#             custom_vmap was tried and rejected: custom_vmap does not
-#             compose with jax.grad.)
+#             the non-differentiated region) then merges the axes. (An
+#             outer custom_vmap was tried and rejected: custom_vmap does
+#             not compose with jax.grad.)
 # ---------------------------------------------------------------------------
 
 import functools as _functools
 
 
 @_functools.lru_cache(maxsize=64)
-def _diff_core(grid: Grid, config: EikonalConfig, impl: str, interpret: bool):
+def _diff_core(grid: Grid, config: EikonalConfig):
     from mceik_tpu.eikonal.batched import solve_eikonal_batched
 
     @jax.custom_vjp
     def solve_flat(s_b, srcs):
-        return solve_eikonal_batched(s_b, srcs, grid, config, impl=impl,
-                                     interpret=interpret)
+        return solve_eikonal_batched(s_b, srcs, grid, config)
 
     def fwd(s_b, srcs):
         T = solve_flat(s_b, srcs)
@@ -152,8 +146,7 @@ def _diff_core(grid: Grid, config: EikonalConfig, impl: str, interpret: bool):
             )(T_, s_, x_)
 
         _, vjp_fn = jax.vjp(F, T, s_b, srcs)
-        lam = transport_solve_batched(g, T, s_b, srcs, grid, config,
-                                      interpret=interpret)
+        lam = transport_solve_batched(g, T, s_b, srcs, grid, config)
         # Final (ds, dsrc) via one exact AD application of (dF/d.)^T.
         _, ds, dsrc = vjp_fn(lam)
         return ds, dsrc
@@ -163,9 +156,7 @@ def _diff_core(grid: Grid, config: EikonalConfig, impl: str, interpret: bool):
 
 
 def solve_eikonal_diff_batched(slowness, srcs, grid: Grid,
-                               config: EikonalConfig = EikonalConfig(),
-                               impl: str = "field",
-                               interpret: bool = False):
+                               config: EikonalConfig = EikonalConfig()):
     """Differentiable batched solve from ``(B, D)`` sources; gradients
     w.r.t. slowness (and sources) via the flat-batch implicit adjoint."""
     slowness = jnp.asarray(slowness, jnp.float32)
@@ -174,4 +165,4 @@ def solve_eikonal_diff_batched(slowness, srcs, grid: Grid,
         s_b = jnp.broadcast_to(slowness, (B,) + grid.shape)
     else:
         s_b = slowness
-    return _diff_core(grid, config, impl, interpret)(s_b, srcs)
+    return _diff_core(grid, config)(s_b, srcs)

@@ -5,7 +5,7 @@ For fields that pressure a single chip's HBM (128^3+ x station batches),
 the 3-D grid is sharded along its leading axis over a ``Mesh`` axis; each
 device sweeps its slab and exchanges one boundary plane per side per
 iteration with its neighbors via ``lax.ppermute`` (neighbor-only, ring
-shaped — rides ICI), i.e. block-parallel fast sweeping (Zhao-2007 style):
+shaped), i.e. block-parallel fast sweeping (Zhao-2007 style):
 
     while not converged (global pmax of per-slab deltas):
         halo_lo = ppermute(T_slab[-1], shift +1)   # from lower neighbor

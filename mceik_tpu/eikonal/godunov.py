@@ -1,11 +1,11 @@
 """Vectorized Godunov upwind local solver for the eikonal equation.
 
 The reference's Fortran local solver updates one node at a time inside
-nested sweep loops (SURVEY.md §2.1 "Eikonal local solver", §3.2). On TPU we
+nested sweep loops (SURVEY.md §2.1 "Eikonal local solver", §3.2). We
 instead evaluate the same Godunov upwind update for *every* node of the grid
-simultaneously as a branchless vector program (VPU-friendly: shifts,
-compares, selects, one sqrt), and let the outer iteration (Jacobi or plane
-sweeps) handle causality ordering.
+simultaneously as a branchless vector program (shifts, compares, selects,
+one sqrt), and let the outer iteration (Jacobi or plane sweeps) handle
+causality ordering.
 
 Math (Zhao 2005 fast-sweeping local solver, anisotropic spacing): at each
 node with per-axis upwind neighbor minima ``a_d`` and weights
@@ -20,7 +20,7 @@ n-term quadratic has the numerically stable discriminant
     disc_n = (sum w) * s^2 - sum_{i<j} w_i w_j (a_i - a_j)^2
 
 (avoids the catastrophic cancellation of the naive ``B^2 - A*C`` form in
-fp32, which matters because we run the whole solver in float32 on TPU).
+fp32, which matters because the whole solver runs in float32).
 """
 
 from __future__ import annotations

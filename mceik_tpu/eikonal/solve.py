@@ -1,12 +1,12 @@
 """Eikonal solver drivers: source seeding, Jacobi iteration, plane sweeps.
 
 Replaces the reference's serial recursive sweep drivers (SURVEY.md §2.1
-"Sweep scheduler 2-D/3-D", §3.2) with two TPU-parallel schemes:
+"Sweep scheduler 2-D/3-D", §3.2) with two data-parallel schemes:
 
 - ``jacobi``: full-grid monotone updates in a bounded ``lax.while_loop``.
   Every node updates in parallel each iteration; information travels one
   node per iteration, so iterations ~ O(longest characteristic in nodes).
-  All work is VPU-vectorized; this is also the fixed-point map the
+  All work is vectorized; this is also the fixed-point map the
   implicit adjoint differentiates.
 
 - ``sweep``: directional plane sweeps. For each axis and direction, a
@@ -46,8 +46,6 @@ class EikonalConfig:
         always bounded so jit never hangs).
       n_inner: in-plane micro-iterations per plane update (sweep only).
       seed_radius: source seed box radius, in units of max grid spacing.
-      use_pallas: "auto" (fused VMEM kernel on TPU), "on", "off", or
-        "interpret" (kernel in interpreter mode — for CPU tests).
     """
 
     method: str = "sweep"
@@ -55,11 +53,10 @@ class EikonalConfig:
     max_iters: int = 200
     n_inner: int = 2
     seed_radius: float = 3.0
-    use_pallas: str = "auto"
 
 
 def _index_grids(shape):
-    """Per-axis node-index arrays of full grid shape (>=2-D iota for TPU)."""
+    """Per-axis node-index arrays of full grid shape."""
     return [
         lax.broadcasted_iota(jnp.float32, shape, dimension=d)
         for d in range(len(shape))
@@ -197,19 +194,6 @@ def solve_eikonal(
         return _jacobi_solve(T0, frozen, slowness, grid.spacing, config.tol,
                              config.max_iters)
     if config.method == "sweep":
-        pallas = config.use_pallas
-        if pallas == "auto":
-            from mceik_tpu.eikonal.pallas_sweep import MAX_VMEM_FIELD_BYTES
-
-            fits = 4 * grid.n_nodes <= MAX_VMEM_FIELD_BYTES
-            pallas = "on" if (jax.default_backend() == "tpu" and fits) else "off"
-        if pallas in ("on", "interpret"):
-            from mceik_tpu.eikonal.pallas_sweep import sweep_solve_pallas
-
-            return sweep_solve_pallas(T0, frozen, slowness, grid.spacing,
-                                      config.tol, config.max_iters,
-                                      config.n_inner,
-                                      interpret=(pallas == "interpret"))
         return _sweep_solve(T0, frozen, slowness, grid.spacing, config.tol,
                             config.max_iters, config.n_inner)
     raise ValueError(f"unknown method {config.method!r}")

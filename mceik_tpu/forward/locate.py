@@ -4,7 +4,7 @@
 For each event, evaluates the origin-time-marginalized Gaussian misfit at
 EVERY grid node simultaneously (the traveltime tables already hold T from
 each station to every node — reciprocity) and takes the argmax. Trivially
-TPU-parallel: one (n_sta, n_nodes) reduction per event. Used to
+parallel: one (n_sta, n_nodes) reduction per event. Used to
 initialize sampler chains near the likelihood mode and as the standalone
 locate tool.
 """

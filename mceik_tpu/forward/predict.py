@@ -34,46 +34,17 @@ def traveltime_tables(
 
     Returns: ``(n_tab,) + grid.shape`` traveltime fields.
     """
+    # Every batched solve goes through the flat-batch custom_vmap boundary
+    # (eikonal/batched.py): outer vmaps (chains, events) merge into one
+    # rank-1 batch, which the GPU kernel runs in one launch.
     if differentiable:
         from mceik_tpu.eikonal.adjoint import solve_eikonal_diff_batched
 
-        pallas = config.use_pallas
-        if pallas == "auto":
-            pallas = "on" if jax.default_backend() == "tpu" else "off"
-        if pallas in ("on", "interpret"):
-            from mceik_tpu.eikonal.pallas_sweep import MAX_VMEM_FIELD_BYTES
+        return solve_eikonal_diff_batched(slowness, table_xyz, grid, config)
 
-            impl = ("field" if 4 * grid.n_nodes <= MAX_VMEM_FIELD_BYTES
-                    else "blocked")
-        else:
-            impl = "xla"
-        return solve_eikonal_diff_batched(slowness, table_xyz, grid, config,
-                                          impl=impl,
-                                          interpret=(pallas == "interpret"))
-
-    # ALL non-differentiable batched solves route through the flat-batch
-    # custom_vmap boundary (eikonal/batched.py): outer vmaps (chains,
-    # events) merge into one rank-1 batch — required for TPU correctness
-    # (the backend miscompiles doubly-vmapped scan sweeps) and for the
-    # field kernels' lane packing.
     from mceik_tpu.eikonal.batched import solve_eikonal_batched
 
-    pallas = config.use_pallas
-    if pallas == "auto":
-        pallas = "on" if jax.default_backend() == "tpu" else "off"
-    if pallas in ("on", "interpret"):
-        from mceik_tpu.eikonal.pallas_sweep import MAX_VMEM_FIELD_BYTES
-
-        # Whole-field VMEM kernel when the field fits; axis-0 blocked
-        # variant (same kernel per block + halo pinning) for larger grids
-        # (128^3+).
-        impl = ("field" if 4 * grid.n_nodes <= MAX_VMEM_FIELD_BYTES
-                else "blocked")
-    else:
-        impl = "xla"
-    return solve_eikonal_batched(slowness, table_xyz, grid, config,
-                                 impl=impl,
-                                 interpret=(pallas == "interpret"))
+    return solve_eikonal_batched(slowness, table_xyz, grid, config)
 
 
 def interp_at(T: jnp.ndarray, xyz: jnp.ndarray, grid: Grid) -> jnp.ndarray:

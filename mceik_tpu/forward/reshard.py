@@ -16,7 +16,7 @@ head-sharded attention. Each device then interpolates its OWN stations'
 full fields locally; the resulting ``(S/n, E)`` arrival matrix is tiny and
 is re-assembled with one ``all_gather``. Total comms: one all-to-all of
 the table bytes (the minimum possible data motion — every table value
-changes owner at most once) + one small all-gather, all riding ICI.
+changes owner at most once) + one small all-gather.
 """
 
 from __future__ import annotations

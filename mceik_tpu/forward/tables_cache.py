@@ -13,7 +13,6 @@ import hashlib
 import os
 from typing import Optional
 
-import h5py
 import numpy as np
 
 from mceik_tpu.eikonal.solve import EikonalConfig
@@ -44,6 +43,9 @@ def cached_traveltime_tables(slowness, sta_xyz, grid: Grid,
     if cache_dir is None:
         return np.asarray(traveltime_tables(slowness, sta_xyz, grid, config))
 
+    from mceik_tpu.io.loaders import require_h5py
+
+    h5py = require_h5py()
     key = _table_key(slowness, sta_xyz, grid, config)
     path = os.path.join(cache_dir, f"tables_{key}.h5")
     if os.path.exists(path):

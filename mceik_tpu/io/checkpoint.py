@@ -1,4 +1,4 @@
-"""HDF5 checkpoint/resume of sampler state (SURVEY.md §5 "Checkpoint").
+"""Checkpoint/resume of sampler state (SURVEY.md §5 "Checkpoint").
 
 Checkpoints are complete — every chain's parameters, log-posterior,
 adaptation state and the PRNG key — so any crash resumes exactly
@@ -6,7 +6,8 @@ adaptation state and the PRNG key — so any crash resumes exactly
 (tmp file + rename). Restoration is example-driven: leaves are stored by
 their pytree key path and loaded back into a structurally identical
 example, which keeps the format stable across dataclass changes that only
-reorder fields.
+reorder fields. The file is a NumPy ``.npz`` archive: one array per leaf
+under its key path, plus the JSON meta under ``_META``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import json
 import os
 from typing import Any, Dict, Optional
 
-import h5py
 import jax
 import numpy as np
+
+
+_META = "_META"
 
 
 def _flatten_with_paths(tree: Any):
@@ -33,11 +36,10 @@ def _flatten_with_paths(tree: Any):
 def save_checkpoint(path: str, state: Any, meta: Optional[Dict] = None) -> None:
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with h5py.File(tmp, "w") as f:
-        g = f.create_group("state")
-        for key, arr in _flatten_with_paths(state).items():
-            g.create_dataset(key, data=arr)
-        f.attrs["meta"] = json.dumps(meta or {})
+    arrays = _flatten_with_paths(state)
+    arrays[_META] = np.asarray(json.dumps(meta or {}))
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
     os.replace(tmp, path)
 
 
@@ -47,10 +49,9 @@ def load_checkpoint(path: str, example: Any):
     Returns ``(state, meta)``; raises KeyError if the stored leaves don't
     match the example's pytree paths (a config mismatch).
     """
-    with h5py.File(path, "r") as f:
-        g = f["state"]
-        stored = {k: np.asarray(v) for k, v in _walk(g)}
-        meta = json.loads(f.attrs.get("meta", "{}"))
+    with np.load(path, allow_pickle=False) as f:
+        stored = {k: f[k] for k in f.files}
+    meta = json.loads(str(stored.pop(_META, "{}")))
 
     flat, treedef = jax.tree_util.tree_flatten_with_path(example)
     leaves = []
@@ -66,11 +67,3 @@ def load_checkpoint(path: str, example: Any):
         leaves.append(arr.astype(np.asarray(leaf).dtype))
     return jax.tree_util.tree_unflatten(treedef, leaves), meta
 
-
-def _walk(group, prefix=""):
-    for k, v in group.items():
-        key = f"{prefix}{k}"
-        if isinstance(v, h5py.Group):
-            yield from _walk(v, key + "/")
-        else:
-            yield key, v

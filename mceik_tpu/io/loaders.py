@@ -28,7 +28,6 @@ import csv
 import os
 from typing import Dict, Optional, Tuple
 
-import h5py
 import numpy as np
 
 from mceik_tpu.grid import Grid
@@ -39,12 +38,24 @@ from mceik_tpu.model.data import EventData, TomoData
 # HDF5
 # ---------------------------------------------------------------------------
 
+def require_h5py():
+    """Import h5py on first use: only users' HDF5 files need it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("reading or writing HDF5 files needs the h5py "
+                          "package, which is not installed") from e
+    return h5py
+
+
 def save_dataset_hdf5(path: str, data, slowness: Optional[np.ndarray] = None,
                       grid: Optional[Grid] = None,
                       extra: Optional[Dict[str, np.ndarray]] = None) -> None:
     """Write a TomoData/EventData (+ optional slowness model) atomically."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
+    h5py = require_h5py()
+
     with h5py.File(tmp, "w") as f:
         if isinstance(data, TomoData):
             f.attrs["kind"] = "tomo"
@@ -72,6 +83,8 @@ def load_dataset_hdf5(path: str) -> Tuple[object, Dict[str, np.ndarray]]:
     """Load (data, truth_dict). truth_dict carries the stored slowness
     model (and any hypo/t0 extras) when present."""
     import jax.numpy as jnp
+
+    h5py = require_h5py()
 
     with h5py.File(path, "r") as f:
         kind = f.attrs.get("kind")
@@ -102,6 +115,8 @@ def save_slowness_hdf5(path: str, slowness: np.ndarray, grid: Grid) -> None:
     """Standalone slowness-model file (locate mode's fixed velocity model)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
+    h5py = require_h5py()
+
     with h5py.File(tmp, "w") as f:
         ds = f.create_dataset("slowness", data=np.asarray(slowness, np.float32))
         ds.attrs["spacing"] = np.asarray(grid.spacing, np.float64)
@@ -112,6 +127,8 @@ def save_slowness_hdf5(path: str, slowness: np.ndarray, grid: Grid) -> None:
 def load_slowness_hdf5(path: str, expect_grid: Optional[Grid] = None
                        ) -> np.ndarray:
     """Load a slowness field; validates geometry against ``expect_grid``."""
+    h5py = require_h5py()
+
     with h5py.File(path, "r") as f:
         ds = f["slowness"]
         s = np.asarray(ds, np.float32)

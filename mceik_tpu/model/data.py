@@ -9,11 +9,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.struct
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 
-@flax.struct.dataclass
+
+@pytree_dataclass
 class TomoData:
     """Known source/receiver pairs (configs 1-2)."""
 
@@ -23,7 +24,7 @@ class TomoData:
     mask: Optional[jnp.ndarray] = None  # (n_src, n_rec) 1.0 = observed
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class EventData:
     """Stations + events with unknown hypocenters (configs 3/5)."""
 

@@ -19,14 +19,14 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.grid import Grid
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Params:
     u: Optional[jnp.ndarray] = None          # (inv_shape) log-slowness deviation
     hypo_raw: Optional[jnp.ndarray] = None   # (n_ev, D) unconstrained

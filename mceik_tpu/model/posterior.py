@@ -38,7 +38,6 @@ def _eik_config(cfg: EikonalCfg) -> EikonalConfig:
     return EikonalConfig(
         method=cfg.method, tol=cfg.tol, max_iters=cfg.max_iters,
         n_inner=cfg.n_inner, seed_radius=cfg.seed_radius,
-        use_pallas=cfg.use_pallas,
     )
 
 

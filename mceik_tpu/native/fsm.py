@@ -1,5 +1,5 @@
 """ctypes binding + on-demand build of the C++ serial FSM solver
-(native/fsm.cc). Used as the golden oracle for the TPU solvers' fixed
+(native/fsm.cc). Used as the golden oracle for the parallel solvers' fixed
 point and as a host-side traveltime-table builder for locate-only runs.
 """
 
@@ -24,10 +24,12 @@ _lib = None
 
 
 def _build() -> str:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o",
-           _LIB + ".tmp"]
+    # A per-process temporary name: parallel test workers may build at
+    # the same time, and each must rename a complete library into place.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(_LIB + ".tmp", _LIB)
+    os.replace(tmp, _LIB)
     return _LIB
 
 

@@ -3,7 +3,7 @@ proposal adaptation from chain history, pooled across chains. Config 2's
 sampler.
 
 For field-scale parameters (a 64^3 slowness field) the classic full
-proposal covariance is infeasible (d^2 entries), so the TPU-native design
+proposal covariance is infeasible (d^2 entries), so this design
 adapts a *diagonal* covariance online — per-coordinate posterior variances
 estimated with a cross-chain+time Welford accumulator (the cross-chain
 merge is exactly the collective-pooled adaptation of SURVEY.md §3.1) — plus
@@ -19,17 +19,17 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.diag.moments import Welford, welford_init, welford_update_batch
 from mceik_tpu.samplers.base import MHState
 from mceik_tpu.samplers.hmc import DualAveraging, dual_averaging_update
 from mceik_tpu.utils import tree_random_normal, tree_size, tree_where
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class AMHyper:
     log_step: jnp.ndarray
     scales: Any          # prior-based fallback scales (pytree like params)

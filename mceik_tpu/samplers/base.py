@@ -15,15 +15,15 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import lax
 
+from mceik_tpu.utils import pytree_dataclass, static_field
 from mceik_tpu.diag.moments import Welford, welford_init, welford_update
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class MHState:
     """Minimal Metropolis-family chain state."""
 
@@ -31,7 +31,7 @@ class MHState:
     logpost: jnp.ndarray
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class MCMCResult:
     states: Any          # final chain-batched states
     hyper: Any           # final adaptation parameters
@@ -40,7 +40,7 @@ class MCMCResult:
     logpost_trace: jnp.ndarray   # (n_collect, n_chains)
     accept_trace: jnp.ndarray    # (n_collect, n_chains) mean accept prob
     warmup_accept: jnp.ndarray   # (n_warmup,) pooled accept prob
-    n_steps: int = flax.struct.field(pytree_node=False, default=0)
+    n_steps: int = static_field(default=0)
 
 
 def init_chain_states(logpost_fn, init_params_fn, key, n_chains: int) -> MHState:

@@ -11,17 +11,17 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 from jax import lax
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.diag.moments import Welford, welford_init, welford_update_batch
 from mceik_tpu.samplers.base import MHState
 from mceik_tpu.utils import tree_dot, tree_random_normal, tree_where
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class DualAveraging:
     mu: jnp.ndarray
     log_eps: jnp.ndarray
@@ -29,7 +29,7 @@ class DualAveraging:
     h_bar: jnp.ndarray
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class HMCHyper:
     da: DualAveraging
     inv_mass: Any        # diagonal inverse mass, pytree like params

@@ -9,8 +9,7 @@ Proposal (C = L L^T the learned covariance, eps the adapted step):
 
     y = x + (eps^2 / 2) C grad(x) + eps L xi ,   xi ~ N(0, I)
 
-with the exact MH correction for the asymmetric kernel. TPU-first
-formulation: everything happens in the WHITENED space so no triangular
+with the exact MH correction for the asymmetric kernel. Formulation: everything happens in the WHITENED space so no triangular
 solve is ever needed — with a = L^T grad(x), a_y = L^T grad(y):
 
     y               = x + L (eps^2/2 a + eps xi)          (one matmul)
@@ -18,9 +17,8 @@ solve is ever needed — with a = L^T grad(x), a_y = L^T grad(y):
                     = -xi - eps/2 (a + a_y)               (no solve)
 
 so the Hastings ratio is ||xi||^2/2 - ||xi + eps/2 (a + a_y)||^2/2 plus
-the logpost difference — two (d,d)@(d,) matmuls per gradient, which the
-MXU does in microseconds at d ~ 2k while one gradient costs ~1.75x a
-forward eikonal solve (BASELINE.md 2026-08-19 r2). The gradient at the
+the logpost difference — two (d,d)@(d,) matmuls per gradient, small next
+to the gradient itself (a forward eikonal solve plus its adjoint). The gradient at the
 current point is CACHED in the chain state (MALAState.grad), so each
 step pays exactly one new value_and_grad.
 
@@ -41,16 +39,20 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
+from jax import lax
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.samplers.am_full import (AMFullHyper, _ravel, _unravel_fn,
                                         init_hyper as _am_full_init_hyper)
 from mceik_tpu.utils import tree_where
 
+# float32 products: a TF32 default on the GPU would keep ~3 digits.
+HIGHEST = lax.Precision.HIGHEST
 
-@flax.struct.dataclass
+
+@pytree_dataclass
 class MALAState:
     """MH chain state + cached gradient at the current point."""
 
@@ -117,14 +119,16 @@ def make_kernel(logpost_fn: Callable) -> Callable:
         eps = jnp.exp(hyper.log_step)
         L = _chol_unmasked(hyper)
 
-        a = L.T @ g
+        a = jnp.matmul(L.T, g, precision=HIGHEST)
         xi = jnp.where(active,
                        jax.random.normal(k_prop, x.shape, x.dtype), 0.0)
-        y = x + L @ (0.5 * eps * eps * a + eps * xi)
+        y = x + jnp.matmul(L, 0.5 * eps * eps * a + eps * xi,
+                           precision=HIGHEST)
 
         prop = unravel(y)
         lp_y, grad_y = vag(prop)
-        ay = L.T @ jnp.where(active, _ravel(grad_y), 0.0)
+        ay = jnp.matmul(L.T, jnp.where(active, _ravel(grad_y), 0.0),
+                        precision=HIGHEST)
 
         # Whitened reverse residual (see module docstring): no solve.
         z = xi + 0.5 * eps * (a + ay)
@@ -177,7 +181,7 @@ def make_adapter(target_accept: float = 0.574,
         n0, mean0, m20 = hyper.count, hyper.mean, hyper.m2
         bmean = jnp.mean(X, axis=0)
         Xc = X - bmean[None, :]
-        bm2 = Xc.T @ Xc
+        bm2 = jnp.matmul(Xc.T, Xc, precision=HIGHEST)
         n = n0 + C
         delta = bmean - mean0
         mean = mean0 + delta * (C / jnp.maximum(n, 1.0))

@@ -1,7 +1,7 @@
 """Iterative, fixed-budget, vmap-safe NUTS (SURVEY.md §2.1 "HMC/NUTS",
 §3.3, §7 M5 hard-part 3).
 
-Recursive NUTS is unusable under ``vmap``/TPU (data-dependent recursion),
+Recursive NUTS is unusable under ``vmap`` (data-dependent recursion),
 so this is the iterative multinomial formulation: the trajectory doubles
 up to ``max_tree_depth`` times; each doubling simulates ``2^d`` leapfrog
 steps sequentially with
@@ -19,7 +19,7 @@ steps sequentially with
 
 Every chain always runs the full ``2^max_tree_depth - 1`` leapfrog budget
 (stopped chains mask their updates) — the price of lockstep vmap, paid
-deliberately: wasted FLOPs beat divergent control flow on the VPU.
+deliberately: wasted FLOPs beat divergent control flow across chains.
 
 Step size / mass matrix adaptation reuses hmc.py's dual averaging +
 pooled-Welford machinery (hmc.make_adapter / hmc.finalize).

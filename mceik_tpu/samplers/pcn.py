@@ -1,5 +1,5 @@
 """Preconditioned Crank-Nicolson (pCN) Metropolis (SURVEY.md §2.1
-"Adaptive Metropolis" TPU-native upgrade).
+"Adaptive Metropolis" upgrade).
 
 For Gaussian-prior parameter blocks the pCN proposal
 
@@ -20,16 +20,16 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.samplers.base import MHState
 from mceik_tpu.samplers.hmc import DualAveraging, dual_averaging_update
 from mceik_tpu.utils import tree_random_normal, tree_where
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class PCNHyper:
     log_rho: jnp.ndarray      # pCN step (maps through sigmoid to (0,1))
     gauss_scales: Any         # prior sigmas for Gaussian leaves (None = RW)

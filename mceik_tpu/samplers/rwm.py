@@ -11,15 +11,15 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.samplers.base import MHState
 from mceik_tpu.utils import tree_random_normal, tree_where
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class RWMHyper:
     log_step: jnp.ndarray
     scales: Any  # pytree matching params

@@ -32,19 +32,19 @@ import functools
 from functools import partial
 from typing import Any, Callable, List, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
+from mceik_tpu.utils import pytree_dataclass
 from mceik_tpu.dist.resample import (ess_from_log_weights, resample_tree,
                                      systematic_indices)
 from mceik_tpu.utils import tree_random_normal, tree_where
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class SMCState:
     params: Any                 # particle-batched pytree
     log_prior: jnp.ndarray      # (N,)

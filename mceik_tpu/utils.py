@@ -2,10 +2,32 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree, with ``.replace(**changes)``.
+
+    Fields are pytree children unless declared with :func:`static_field`,
+    which makes them part of the treedef (hashable metadata).
+    """
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")])
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return cls
+
+
+def static_field(**kwargs):
+    """A :func:`pytree_dataclass` field kept out of the pytree's leaves."""
+    return dataclasses.field(metadata={"static": True}, **kwargs)
 
 
 def tree_random_normal(key, example: Any) -> Any:

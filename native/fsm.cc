@@ -3,7 +3,7 @@
 // This is the native-equivalent of the reference's Fortran sweep driver
 // (SURVEY.md §2.2 N1-N3): Godunov upwind local solver + 2^D corner-to-corner
 // Gauss-Seidel sweep orderings iterated to convergence. In this framework it
-// serves as (a) the golden oracle that the parallel TPU solvers are
+// serves as (a) the golden oracle that the parallel JAX solvers are
 // cross-checked against in tests (same discrete fixed point, independently
 // implemented), and (b) a fast host-side traveltime-table builder for
 // locate-only workflows on machines without accelerators.

@@ -10,7 +10,7 @@ from mceik_tpu.grid import Grid
 from mceik_tpu.eikonal.solve import EikonalConfig
 from mceik_tpu.eikonal.adjoint import solve_eikonal_diff
 
-CFG = EikonalConfig(method="sweep", tol=1e-7, max_iters=200, use_pallas="off")
+CFG = EikonalConfig(method="sweep", tol=1e-7, max_iters=200)
 
 
 def _smooth_slowness(key, grid, amp=0.25):
@@ -83,8 +83,7 @@ def test_grad_through_tomo_likelihood():
                     sigma=0.01)
     dcfg = DataCfg(dataset="crosswell2d", n_src=3, n_rec=4, noise=0.01,
                    checker_cells=(2, 2), checker_amplitude=0.1)
-    ecfg = EikonalCfg(method="sweep", tol=1e-7, max_iters=200,
-                      use_pallas="off")
+    ecfg = EikonalCfg(method="sweep", tol=1e-7, max_iters=200)
     data, _ = make_dataset(grid, dcfg, mcfg)
     post = build_posterior(mcfg, data, grid, ecfg, differentiable=True)
     params = post.init_params(jax.random.PRNGKey(0))

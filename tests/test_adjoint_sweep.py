@@ -1,9 +1,8 @@
-"""Swept adjoint transport (eikonal/adjoint_sweep.py, pallas_transport.py):
+"""Swept adjoint transport (eikonal/adjoint_sweep.py):
 the GS-sweep solve of ``lam = (dF/dT)^T lam + g`` must agree with AD's
 operator exactly and with the (slow) Jacobi iteration it replaces.
 """
 
-import os
 
 import jax
 import jax.numpy as jnp
@@ -45,73 +44,13 @@ def test_gs_transport_solves_fixed_point(problem):
     """The swept solution satisfies lam = (dF/dT)^T lam + g under AD's
     operator (residual at fp32 epsilon), and matches long-run Jacobi."""
     grid, ws, vjp_fn, g = problem
-    lam = transport_solve(g, ws, tol=1e-7, max_cycles=100, use_pallas="off")
+    lam = transport_solve(g, ws, tol=1e-7, max_cycles=100)
     resid = lam - (vjp_fn(lam)[0] + g)
     assert float(jnp.max(jnp.abs(resid))) < 1e-5
     lam_j = g
     for _ in range(300):
         lam_j = vjp_fn(lam_j)[0] + g
     np.testing.assert_allclose(np.asarray(lam), np.asarray(lam_j), atol=1e-5)
-
-
-def test_pallas_transport_matches_pure(problem):
-    grid, ws, vjp_fn, g = problem
-    lam = transport_solve(g, ws, tol=1e-7, max_cycles=100, use_pallas="off")
-    lam_p = transport_solve(g, ws, tol=1e-7, max_cycles=100,
-                            use_pallas="interpret")
-    np.testing.assert_allclose(np.asarray(lam_p), np.asarray(lam), atol=1e-5)
-
-
-def test_packed_transport_matches_singles():
-    from mceik_tpu.eikonal.pallas_transport import (
-        transport_solve_pallas_packed)
-
-    grid = Grid(shape=(12, 12, 16), spacing=(1.0, 1.0, 1.0))
-    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=100)
-    key = jax.random.PRNGKey(1)
-    s = 1.0 + 0.3 * jax.random.uniform(key, grid.shape)
-    P = 8
-    gs, wss = [], []
-    for i in range(P):
-        src = jnp.asarray([2.0 + i, 6.0, 8.0], jnp.float32)
-        T = solve_eikonal(s, src, grid, cfg)
-        _, fr = seed_source(s, src, grid, cfg.seed_radius)
-        wss.append(transport_weights(T, s, fr, grid.spacing))
-        gs.append(jax.random.normal(jax.random.fold_in(key, 10 + i),
-                                    grid.shape) * 0.1)
-    g_st = jnp.stack(gs)
-    ws_st = tuple(jnp.stack([wss[i][d] for i in range(P)]) for d in range(3))
-    packed = transport_solve_pallas_packed(g_st, ws_st, tol=1e-7,
-                                           max_cycles=100, interpret=True)
-    singles = jnp.stack([
-        transport_solve(gs[i], wss[i], tol=1e-7, max_cycles=100,
-                        use_pallas="off") for i in range(P)])
-    np.testing.assert_allclose(np.asarray(packed), np.asarray(singles),
-                               atol=1e-5)
-
-
-def test_blocked_transport_matches_pure():
-    """Blocked (big-field) transport: forced multi-block partitioning +
-    halo pinning must reach the same fixed point as the unblocked solve."""
-    from mceik_tpu.eikonal.pallas_transport import (
-        transport_solve_pallas_blocked)
-
-    grid = Grid(shape=(12, 10, 8), spacing=(1.0, 1.0, 1.0))
-    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=100)
-    key = jax.random.PRNGKey(0)
-    s = 1.0 + 0.3 * jax.random.uniform(key, grid.shape)
-    src = jnp.asarray([3.0, 5.0, 4.0], jnp.float32)
-    T = solve_eikonal(s, src, grid, cfg)
-    _, frozen = seed_source(s, src, grid, cfg.seed_radius)
-    ws = transport_weights(T, s, frozen, grid.spacing)
-    g = jax.random.normal(jax.random.fold_in(key, 2), grid.shape) * 0.1
-
-    lam_ref = transport_solve(g, ws, tol=1e-7, max_cycles=60,
-                              use_pallas="off")
-    lam_blk = transport_solve_pallas_blocked(g, ws, tol=1e-7, max_cycles=60,
-                                             interpret=True, n_blocks=4)
-    np.testing.assert_allclose(np.asarray(lam_blk), np.asarray(lam_ref),
-                               atol=1e-5)
 
 
 def test_divergent_transport_flags_nan_not_silent_truncation():
@@ -131,7 +70,7 @@ def test_divergent_transport_flags_nan_not_silent_truncation():
     j = jnp.arange(shape[1])[None, :]
     ws = (jnp.where(i % 2 == 0, -1.3, 1.3) * jnp.ones(shape, jnp.float32),
           jnp.where(j % 2 == 0, -1.3, 1.3) * jnp.ones(shape, jnp.float32))
-    lam = transport_solve(g, ws, tol=1e-6, max_cycles=30, use_pallas="off")
+    lam = transport_solve(g, ws, tol=1e-6, max_cycles=30)
     assert np.all(np.isnan(np.asarray(lam))), "divergence must poison lambda"
 
 
@@ -141,7 +80,7 @@ def test_contractive_transport_still_converges_clean(problem):
     solving the system."""
     grid, ws, _, _ = problem
     g = jax.random.normal(jax.random.PRNGKey(5), grid.shape, jnp.float32)
-    lam = transport_solve(g, ws, tol=1e-8, max_cycles=200, use_pallas="off")
+    lam = transport_solve(g, ws, tol=1e-8, max_cycles=200)
     assert np.all(np.isfinite(np.asarray(lam)))
     resid = np.asarray(lam - (apply_WT(lam, ws) + g))
     assert np.max(np.abs(resid)) < 1e-4

@@ -12,8 +12,7 @@ from mceik_tpu.io.config_io import config_from_dict
 def _cfg(tmp_path, **io_kw):
     return config_from_dict({
         "grid": {"shape": [17, 17], "spacing": [1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-4, "max_iters": 50,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-4, "max_iters": 50},
         "model": {"mode": "tomo", "inv_shape": [4, 4],
                   "background_slowness": 1.0, "prior_sigma_u": 0.2,
                   "sigma": 0.01},

@@ -27,8 +27,7 @@ def test_sharded_matches_unsharded(shape, src):
     grid = Grid(shape=shape, spacing=tuple(1.0 for _ in shape))
     s = _smooth(jax.random.PRNGKey(8), grid)
     src = jnp.asarray(src, jnp.float32)
-    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=200,
-                        use_pallas="off")
+    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=200)
     T_ref = np.asarray(solve_eikonal(s, src, grid, cfg))
 
     mesh = chain_mesh(n_devices=8, axis="grid")
@@ -40,8 +39,7 @@ def test_sharded_on_two_devices():
     grid = Grid(shape=(20, 13), spacing=(1.0, 1.0))
     s = jnp.ones(grid.shape)
     src = jnp.asarray([9.5, 6.0], jnp.float32)
-    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=200,
-                        use_pallas="off")
+    cfg = EikonalConfig(method="sweep", tol=1e-6, max_iters=200)
     T_ref = np.asarray(solve_eikonal(s, src, grid, cfg))
     mesh = chain_mesh(n_devices=2, axis="grid")
     T_sh = np.asarray(solve_eikonal_sharded(s, src, grid, mesh, "grid", cfg))
@@ -60,8 +58,7 @@ def test_ulysses_reshard_matches_unsharded():
 
     grid = Grid(shape=(16, 12, 9), spacing=(1.0, 1.0, 1.0))
     s = _smooth(jax.random.PRNGKey(3), grid)
-    cfg = EikonalConfig(method="sweep", tol=1e-5, max_iters=100,
-                        use_pallas="off")
+    cfg = EikonalConfig(method="sweep", tol=1e-5, max_iters=100)
     key = jax.random.PRNGKey(4)
     n_sta, n_ev = 8, 5
     sta = jax.random.uniform(key, (n_sta, 3)) * jnp.asarray([15., 11., 8.])

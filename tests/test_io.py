@@ -60,8 +60,7 @@ def test_traveltime_table_cache(tmp_path):
     grid = Grid(shape=(13, 11), spacing=(1.0, 1.0))
     s = jnp.ones(grid.shape)
     sta = jnp.asarray([[2.0, 3.0], [10.0, 8.0]], jnp.float32)
-    cfg = EikonalConfig(method="sweep", tol=1e-5, max_iters=60,
-                        use_pallas="off")
+    cfg = EikonalConfig(method="sweep", tol=1e-5, max_iters=60)
     t1 = cached_traveltime_tables(s, sta, grid, cfg, cache_dir=str(tmp_path))
     files = list(tmp_path.glob("tables_*.h5"))
     assert len(files) == 1

@@ -34,7 +34,7 @@ MCFG = ModelCfg(mode="tomo", inv_shape=(3, 3, 3), prior_sigma_u=0.15,
 DCFG = DataCfg(dataset="checkerboard3d_volume", n_src=5, n_rec=6,
                noise=0.03, seed=42, checker_cells=(2, 2, 2),
                checker_amplitude=0.08)
-ECFG = EikonalCfg(method="sweep", tol=1e-3, max_iters=30, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-3, max_iters=30)
 
 
 def _post():

@@ -24,13 +24,12 @@ from mceik_tpu.model.posterior import build_posterior
 
 GRID2 = Grid(shape=(17, 17), spacing=(1.0, 1.0))
 GRID3 = Grid(shape=(17, 17, 13), spacing=(1.0, 1.0, 1.0))
-ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50)
 
 
 def _eik():
     from mceik_tpu.eikonal.solve import EikonalConfig
-    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50,
-                         use_pallas="off")
+    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50)
 
 
 def test_tomo_hdf5_roundtrip_and_file_dataset(tmp_path):

@@ -23,8 +23,7 @@ def _small_mala_config(**sampler_overrides):
     sampler = SamplerCfg(**kw)
     return RunConfig(
         grid=GridCfg(shape=(12, 12, 12), spacing=(1.0, 1.0, 1.0)),
-        eikonal=EikonalCfg(method="sweep", tol=1e-3, max_iters=30,
-                           use_pallas="off"),
+        eikonal=EikonalCfg(method="sweep", tol=1e-3, max_iters=30),
         model=ModelCfg(mode="tomo", inv_shape=(3, 3, 3),
                        background_slowness=1.0, prior_sigma_u=0.15,
                        sigma=0.05),

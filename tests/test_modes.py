@@ -15,7 +15,7 @@ from mceik_tpu.samplers import hmc, rwm
 from mceik_tpu.samplers.base import init_chain_states, run_mcmc
 
 GRID = Grid(shape=(17, 17, 13), spacing=(1.0, 1.0, 1.0))
-ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50)
 
 
 def _events_setup(mode, **model_kw):
@@ -31,8 +31,7 @@ def _events_setup(mode, **model_kw):
 
 def _eik():
     from mceik_tpu.eikonal.solve import EikonalConfig
-    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50,
-                         use_pallas="off")
+    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50)
 
 
 def test_locate_mode_recovers_hypocenters():
@@ -105,8 +104,7 @@ def test_pcn_api_tomo_smoke():
 
     cfg = config_from_dict({
         "grid": {"shape": [12, 12, 12], "spacing": [1.0, 1.0, 1.0]},
-        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30,
-                    "use_pallas": "off"},
+        "eikonal": {"method": "sweep", "tol": 1e-3, "max_iters": 30},
         "model": {"mode": "tomo", "inv_shape": [3, 3, 3],
                   "background_slowness": 1.0, "prior_sigma_u": 0.15,
                   "sigma": 0.05},

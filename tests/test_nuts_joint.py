@@ -21,8 +21,7 @@ def test_nuts_joint_smoke():
                     sigma=0.02)
     dcfg = DataCfg(dataset="events3d", n_events=2, n_stations=5, noise=0.02,
                    seed=21, checker_cells=(2, 2, 2), checker_amplitude=0.05)
-    ecfg = EikonalCfg(method="sweep", tol=1e-4, max_iters=60,
-                      use_pallas="off")
+    ecfg = EikonalCfg(method="sweep", tol=1e-4, max_iters=60)
     data, _ = make_dataset(grid, dcfg, mcfg)
     post = build_posterior(mcfg, data, grid, ecfg, differentiable=True)
 

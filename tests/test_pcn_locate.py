@@ -52,8 +52,7 @@ def test_locate_grid_search_recovers_events():
     dcfg = DataCfg(dataset="events3d", n_events=4, n_stations=9,
                    noise=0.003, seed=3, checker_cells=(2, 2, 2),
                    checker_amplitude=0.0)
-    eik = EikonalConfig(method="sweep", tol=1e-5, max_iters=80,
-                        use_pallas="off")
+    eik = EikonalConfig(method="sweep", tol=1e-5, max_iters=80)
     data, s_true, hypo_true, t0_true = events_dataset(grid, dcfg, mcfg, eik)
 
     tables = traveltime_tables(jnp.ones(grid.shape), data.sta_xyz, grid, eik)

@@ -30,7 +30,7 @@ MCFG = ModelCfg(mode="tomo", inv_shape=(5, 5, 5), prior_sigma_u=0.15,
 DCFG = DataCfg(dataset="checkerboard3d_volume", n_src=8, n_rec=10,
                noise=0.01, seed=21, checker_cells=(2, 2, 2),
                checker_amplitude=0.08)
-ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=40, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=40)
 
 
 def test_map_recovers_3d_checkerboard():

@@ -19,7 +19,7 @@ from mceik_tpu.samplers import am
 from mceik_tpu.samplers.base import init_chain_states, run_mcmc
 
 GRID2 = Grid(shape=(17, 17), spacing=(1.0, 1.0))
-ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-4, max_iters=50)
 
 NOISY = (2, 5, 7)  # stations with genuinely inflated noise
 SIGMA = 0.005
@@ -28,8 +28,7 @@ INFLATE = 12.0
 
 def _eik():
     from mceik_tpu.eikonal.solve import EikonalConfig
-    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50,
-                         use_pallas="off")
+    return EikonalConfig(method="sweep", tol=1e-4, max_iters=50)
 
 
 def _corrupted_tomo(inv_shape=(4, 4)):
@@ -150,7 +149,6 @@ def test_c5_config_runs_reduced_scale():
     cfg = load_config("configs/c5_pod_nuts.json")
     cfg = apply_overrides(cfg, [
         "grid.shape=[12,12,12]", "model.inv_shape=[4,4,4]",
-        "eikonal.use_pallas=off",
         "sampler.n_chains=8", "sampler.n_warmup=8", "sampler.n_samples=8",
         "sampler.thin=2", "sampler.max_tree_depth=3",
         "data.n_events=2", "data.n_stations=4", "io.log_every=8",

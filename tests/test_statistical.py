@@ -35,7 +35,7 @@ MCFG = ModelCfg(mode="tomo", inv_shape=(4, 4), prior_sigma_u=0.15,
                 sigma=0.05)
 DCFG = DataCfg(dataset="crosswell2d", n_src=3, n_rec=4, noise=0.05,
                seed=11, checker_cells=(2, 2), checker_amplitude=0.08)
-ECFG = EikonalCfg(method="sweep", tol=1e-5, max_iters=80, use_pallas="off")
+ECFG = EikonalCfg(method="sweep", tol=1e-5, max_iters=80)
 
 
 @pytest.fixture(scope="module")

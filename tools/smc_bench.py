@@ -3,10 +3,9 @@
 Runs configs/c4_smc.json's 10k-particle tempered ladder on the visible
 device (single chip here; the sharded-across-chips path is proven
 separately — tests/test_dist.py, dryrun D) and reports stages-to-beta=1,
-wall time, particle-mutation-steps/s and logZ. The lane-batched 2-D sweep
-kernel solves all 10k x n_src fields per mutation step in lockstep
-(pallas_sweep.sweep_solve_pallas_2d_lanebatched), so the mutation stage
-is one large compiled execution per stage.
+wall time, particle-mutation-steps/s and logZ. The vmapped 2-D XLA sweep
+solves all 10k x n_src fields per mutation step in one batch, so the
+mutation stage is one large compiled execution per stage.
 
 Usage: python tools/smc_bench.py [--config configs/c4_smc.json]
        [--n-particles N] (override for smoke tests)
@@ -44,7 +43,9 @@ def main():
         cfg = dataclasses.replace(cfg, sampler=dataclasses.replace(
             cfg.sampler, n_particles=args.n_particles))
 
-    print(json.dumps({"device": str(jax.devices()[0]),
+    print(json.dumps({"device": {"platform": jax.devices()[0].platform,
+                                 "kind": jax.devices()[0].device_kind,
+                                 "count": len(jax.devices())},
                       "n_particles": cfg.sampler.n_particles,
                       "n_mutation_steps": cfg.sampler.n_mutation_steps,
                       "grid": list(cfg.grid.shape)}), flush=True)
